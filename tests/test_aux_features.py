@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import GAITS, make_config, replace_config
-from quadruped_pympc_tamols_tpu.config import GAIT_PHASE_OFFSETS, GaitType
-from quadruped_pympc_tamols_tpu.gait import PeriodicGaitGenerator, make_timer_dts
-from quadruped_pympc_tamols_tpu.utils.legs import Legs
+from quadruped_pympc_tamols import GAITS, make_config, replace_config
+from quadruped_pympc_tamols.config import GAIT_PHASE_OFFSETS, GaitType
+from quadruped_pympc_tamols.gait import PeriodicGaitGenerator, make_timer_dts
+from quadruped_pympc_tamols.utils.legs import Legs
 
 
 def test_nonuniform_discretization_dts_and_timer():
@@ -28,7 +28,7 @@ def test_nonuniform_discretization_dts_and_timer():
 
 
 def test_nonuniform_sampling_solver_runs():
-    from quadruped_pympc_tamols_tpu.controllers.sampling import SamplingMPC
+    from quadruped_pympc_tamols.controllers.sampling import SamplingMPC
 
     cfg = make_config("aliengo", mpc_type="sampling")
     cfg = replace_config(cfg, **{"mpc.use_nonuniform_discretization": True,
@@ -74,7 +74,7 @@ def test_start_and_stop_gait():
 
 
 def test_zmp_analysis_util():
-    from quadruped_pympc_tamols_tpu.utils.analysis import (
+    from quadruped_pympc_tamols.utils.analysis import (
         support_polygon_margin,
         zmp_from_grfs,
     )
@@ -96,7 +96,7 @@ def test_zmp_analysis_util():
 
 @pytest.mark.skipif(pytest.importorskip("mujoco") is None, reason="mujoco")
 def test_generate_dataset(tmp_path):
-    from quadruped_pympc_tamols_tpu.sim.generate_dataset import generate_dataset
+    from quadruped_pympc_tamols.sim.generate_dataset import generate_dataset
 
     cfg = make_config("aliengo", mpc_type="sampling", gait="full_stance")
     cfg = replace_config(cfg, **{"mpc.sampling.num_samples": 200,
@@ -115,7 +115,7 @@ def test_generate_dataset(tmp_path):
 def test_geom_contact_reflex_trigger():
     """geom_contact mode: a swing-leg contact whose normal opposes the swing
     direction (< 60 deg) triggers early stance; a grazing side contact does not."""
-    from quadruped_pympc_tamols_tpu.gait.modulation import EarlyStanceDetector
+    from quadruped_pympc_tamols.gait.modulation import EarlyStanceDetector
 
     esd = EarlyStanceDetector(trigger_mode="geom_contact")
     feet = Legs(np.array([[0.25, 0.15, 0.05], [0.25, -0.15, 0.05],
@@ -144,7 +144,7 @@ def test_geom_contact_reflex_trigger():
 def test_env_feet_contact_points():
     mujoco_mod = pytest.importorskip("mujoco")
     del mujoco_mod
-    from quadruped_pympc_tamols_tpu.sim.mujoco_env import QuadrupedEnv
+    from quadruped_pympc_tamols.sim.mujoco_env import QuadrupedEnv
 
     cfg = make_config("aliengo", **{"sim.visual_foothold_adaptation": "blind"})
     env = QuadrupedEnv(cfg, scene="flat")
@@ -163,7 +163,7 @@ def test_env_feet_contact_points():
 def test_h5_episode_export(tmp_path):
     pytest.importorskip("h5py")
     pytest.importorskip("mujoco")
-    from quadruped_pympc_tamols_tpu.sim.generate_dataset import generate_dataset
+    from quadruped_pympc_tamols.sim.generate_dataset import generate_dataset
 
     cfg = make_config("aliengo", mpc_type="sampling",
                       **{"mpc.sampling.num_samples": 200,
@@ -185,7 +185,7 @@ def test_replace_config_validates():
 def test_geom_contact_falls_back_to_tracking_without_points():
     """The runtime node has no physics engine: geom_contact mode with no contact
     points must still trigger on tracking error (safety regression)."""
-    from quadruped_pympc_tamols_tpu.gait.modulation import EarlyStanceDetector
+    from quadruped_pympc_tamols.gait.modulation import EarlyStanceDetector
 
     esd = EarlyStanceDetector(trigger_mode="geom_contact")
     feet = Legs(np.array([[0.25, 0.15, 0.0], [0.25, -0.15, 0.05],
@@ -201,7 +201,7 @@ def test_logger_sigint_flush(tmp_path):
     import os as _os
     import signal
 
-    from quadruped_pympc_tamols_tpu.observability.logger import EpisodeLogger
+    from quadruped_pympc_tamols.observability.logger import EpisodeLogger
 
     path = str(tmp_path / "ep.npz")
     logger = EpisodeLogger(path, flush_every=10_000, flush_on_sigint=True)
@@ -221,9 +221,9 @@ def test_late_touchdown_hold_defers_stance_flip():
     latch that poisoned the comparison and released the hold mid-air)."""
     import numpy as np
 
-    from quadruped_pympc_tamols_tpu import make_config
-    from quadruped_pympc_tamols_tpu.interfaces.wb_interface import WBInterface
-    from quadruped_pympc_tamols_tpu.utils.legs import Legs
+    from quadruped_pympc_tamols import make_config
+    from quadruped_pympc_tamols.interfaces.wb_interface import WBInterface
+    from quadruped_pympc_tamols.utils.legs import Legs
 
     cfg = make_config("aliengo", **{"sim.late_touchdown_hold": 0.06,
                                     "sim.visual_foothold_adaptation": "blind"})
@@ -283,9 +283,9 @@ def test_late_touchdown_hold_time_cap():
     an off-target contact."""
     import numpy as np
 
-    from quadruped_pympc_tamols_tpu import make_config
-    from quadruped_pympc_tamols_tpu.interfaces.wb_interface import WBInterface
-    from quadruped_pympc_tamols_tpu.utils.legs import Legs
+    from quadruped_pympc_tamols import make_config
+    from quadruped_pympc_tamols.interfaces.wb_interface import WBInterface
+    from quadruped_pympc_tamols.utils.legs import Legs
 
     cfg = make_config("aliengo", **{"sim.late_touchdown_hold": 0.06,
                                     "sim.visual_foothold_adaptation": "blind"})

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config
-from quadruped_pympc_tamols_tpu.dynamics import fd, integrate_euler, integrate_rk4, make_params
+from quadruped_pympc_tamols import make_config
+from quadruped_pympc_tamols.dynamics import fd, integrate_euler, integrate_rk4, make_params
 
 
 def numpy_reference_fd(state, feet, forces, contact, mass, inertia, g=9.81):

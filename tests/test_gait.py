@@ -3,9 +3,9 @@ numpy re-implementation of the reference timer (periodic_gait_generator.py:48-11
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_pympc_tamols_tpu import GAITS, GaitType, make_config
-from quadruped_pympc_tamols_tpu.config import GAIT_PHASE_OFFSETS
-from quadruped_pympc_tamols_tpu.gait import (
+from quadruped_pympc_tamols import GAITS, GaitType, make_config
+from quadruped_pympc_tamols.config import GAIT_PHASE_OFFSETS
+from quadruped_pympc_tamols.gait import (
     PeriodicGaitGenerator,
     contact_sequence,
     make_timer_dts,

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
-from quadruped_pympc_tamols_tpu.controllers.sampling import GaitAdaptiveSamplingMPC
-from quadruped_pympc_tamols_tpu.controllers.sampling.gait_adaptive import _timer_sequence
+from quadruped_pympc_tamols import make_config, replace_config
+from quadruped_pympc_tamols.controllers.sampling import GaitAdaptiveSamplingMPC
+from quadruped_pympc_tamols.controllers.sampling.gait_adaptive import _timer_sequence
 
 
 def stepwise_jax_pgg(phase0, step_freq, duty, mpc_dt, horizon):

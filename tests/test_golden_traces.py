@@ -20,7 +20,7 @@ import os
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config
+from quadruped_pympc_tamols import make_config
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "golden_traces.npz")
 
@@ -65,7 +65,7 @@ def _slope_feet():
 
 
 def _gradient_case(variant, state, ref, seq):
-    from quadruped_pympc_tamols_tpu.controllers.gradient import (
+    from quadruped_pympc_tamols.controllers.gradient import (
         GradientMPC,
         VariantGradientMPC,
     )
@@ -75,8 +75,8 @@ def _gradient_case(variant, state, ref, seq):
     if variant == "kinodynamic":
         import jax.numpy as jnp
 
-        from quadruped_pympc_tamols_tpu.kinematics import LegKinematics
-        from quadruped_pympc_tamols_tpu.utils.frames import euler_xyz_to_rot
+        from quadruped_pympc_tamols.kinematics import LegKinematics
+        from quadruped_pympc_tamols.utils.frames import euler_xyz_to_rot
 
         kin = LegKinematics(cfg.robot)
         feet = np.stack([state[f"foot_{leg}"] for leg in ("FL", "FR", "RL", "RR")])
@@ -96,7 +96,7 @@ def _sampling_case(state, ref, seq):
     import jax
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu.controllers.sampling import SamplingMPC
+    from quadruped_pympc_tamols.controllers.sampling import SamplingMPC
 
     cfg = make_config("aliengo", mpc_type="sampling")
     mpc = SamplingMPC(cfg, num_samples=256, seed=0)
@@ -108,12 +108,12 @@ def _sampling_case(state, ref, seq):
 
 def _tamols_case():
     """Pin the TAMOLS scorer's outputs on a deterministic stepping-stone
-    heightmap (VERDICT r2: golden traces should also cover the planner)."""
+    heightmap (golden traces cover the planner too)."""
     import jax
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu.planner.heightmap import heightmap_from_fn
-    from quadruped_pympc_tamols_tpu.planner.tamols import make_tamols_scorer
+    from quadruped_pympc_tamols.planner.heightmap import heightmap_from_fn
+    from quadruped_pympc_tamols.planner.tamols import make_tamols_scorer
 
     cfg = make_config("aliengo", mpc_type="nominal",
                       **{"sim.visual_foothold_adaptation": "tamols",

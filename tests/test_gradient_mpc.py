@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config
-from quadruped_pympc_tamols_tpu.controllers.gradient import (
+from quadruped_pympc_tamols import make_config
+from quadruped_pympc_tamols.controllers.gradient import (
     BatchedGradientMPC,
     GradientMPC,
     build_feet_trajectory,
     pdip_solve,
 )
-from quadruped_pympc_tamols_tpu.dynamics import integrate_euler, make_params
+from quadruped_pympc_tamols.dynamics import integrate_euler, make_params
 
 
 def test_pdip_tiny_qp_analytic():
@@ -146,7 +146,7 @@ def test_batched_gait_optimization():
 
 def test_as_rti_levels_run():
     """AS-RTI-A..D map to extra synchronous GN iterations (reference config.py:126-130)."""
-    from quadruped_pympc_tamols_tpu import replace_config
+    from quadruped_pympc_tamols import replace_config
 
     cfg = make_config("aliengo", mpc_type="nominal")
     cfg = replace_config(cfg, **{"mpc.gradient.use_RTI": True,
@@ -247,7 +247,7 @@ def test_recentering_far_from_origin():
     """The controller interface recenters around the base xy (reference
     perform_scaling): solving 10 km from the origin yields the same GRFs as at the
     origin despite float32 solvers."""
-    from quadruped_pympc_tamols_tpu.interfaces.controller_interface import (
+    from quadruped_pympc_tamols.interfaces.controller_interface import (
         SRBDControllerInterface,
     )
 
@@ -282,7 +282,7 @@ def test_stance_min_force_floor():
     loaded stone feet slid off when any lateral request exited their cone)."""
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu.controllers.gradient import GradientMPC
+    from quadruped_pympc_tamols.controllers.gradient import GradientMPC
 
     cfg = make_config("aliengo", mpc_type="nominal",
                       **{"mpc.gradient.stance_min_force": 20.0})
@@ -314,3 +314,22 @@ def test_stance_min_force_floor():
     # swinging leg's force at ~0 (check stage H-1 of the plan for FR).
     U_last = mpc.U_warm[-1].reshape(4, 3)  # shifted plan's last stage
     assert U_last[1, 2] < 1.0, f"swing leg carries force: {U_last[1, 2]}"
+
+
+@pytest.mark.parametrize("mode", ["balance", "robust"])
+def test_qp_budget_is_the_same_on_every_backend(monkeypatch, mode):
+    """The Mehrotra budget is the f64 ladder's knee, which the CPU backend and
+    the GPU share (14 'balance' iterations; 'robust' adds 4): no backend
+    table decides it."""
+    import jax
+
+    from quadruped_pympc_tamols import replace_config
+    from quadruped_pympc_tamols.controllers.gradient.sqp import qp_solver_for
+
+    gp = replace_config(make_config("aliengo", mpc_type="nominal"),
+                        **{"mpc.gradient.solver_mode": mode}).mpc.gradient
+    budgets = set()
+    for backend in ("cpu", "gpu", "rocm"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        budgets.add(qp_solver_for(gp)[1])
+    assert budgets == {18 if mode == "robust" else 14}

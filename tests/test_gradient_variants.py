@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config
-from quadruped_pympc_tamols_tpu.controllers.gradient import VariantGradientMPC
-from quadruped_pympc_tamols_tpu.controllers.gradient.sqp import GradientMPC
+from quadruped_pympc_tamols import make_config
+from quadruped_pympc_tamols.controllers.gradient import VariantGradientMPC
+from quadruped_pympc_tamols.controllers.gradient.sqp import GradientMPC
 
 
 def _standing(cfg, z=None):
@@ -103,7 +103,7 @@ def test_collaborative_wrench_state_evolves():
 
 
 def test_dispatch_builds_variants():
-    from quadruped_pympc_tamols_tpu.interfaces import SRBDControllerInterface
+    from quadruped_pympc_tamols.interfaces import SRBDControllerInterface
     for t in ("input_rates", "collaborative", "lyapunov"):
         cfg = make_config("aliengo", mpc_type=t)
         iface = SRBDControllerInterface(cfg)
@@ -115,9 +115,9 @@ def test_kinodynamic_standing():
     mpc = VariantGradientMPC(cfg, "kinodynamic")
     state, ref = _standing(cfg, z=cfg.sim.ref_z - 0.02)
     # Nominal standing joints from IK round trip.
-    from quadruped_pympc_tamols_tpu.kinematics import LegKinematics
+    from quadruped_pympc_tamols.kinematics import LegKinematics
     import jax.numpy as jnp
-    from quadruped_pympc_tamols_tpu.utils.frames import euler_xyz_to_rot
+    from quadruped_pympc_tamols.utils.frames import euler_xyz_to_rot
     kin = LegKinematics(cfg.robot)
     feet = np.stack([state[f"foot_{leg}"] for leg in ("FL", "FR", "RL", "RR")])
     q0 = np.asarray(kin.ik_world(jnp.asarray(feet, jnp.float32),
@@ -139,8 +139,8 @@ def test_kinodynamic_standing():
 def test_nominal_stability_constraint_zmp():
     """With ZMP stability on, during a diagonal 2-stance the commanded forces keep
     the ZMP within the margin of the support segment."""
-    from quadruped_pympc_tamols_tpu import replace_config
-    from quadruped_pympc_tamols_tpu.utils.analysis import support_polygon_margin
+    from quadruped_pympc_tamols import replace_config
+    from quadruped_pympc_tamols.utils.analysis import support_polygon_margin
 
     cfg = make_config("aliengo", mpc_type="nominal")
     cfg = replace_config(cfg, **{"mpc.gradient.use_zmp_stability": True})
@@ -163,8 +163,8 @@ def test_nominal_stability_constraint_zmp():
 
 
 def test_dispatch_uses_variant_core_for_stability():
-    from quadruped_pympc_tamols_tpu import replace_config
-    from quadruped_pympc_tamols_tpu.interfaces import SRBDControllerInterface
+    from quadruped_pympc_tamols import replace_config
+    from quadruped_pympc_tamols.interfaces import SRBDControllerInterface
 
     cfg = make_config("aliengo", mpc_type="nominal")
     cfg = replace_config(cfg, **{"mpc.gradient.use_static_stability": True})
@@ -176,7 +176,7 @@ def test_dispatch_uses_variant_core_for_stability():
 def test_foothold_optimization_runs_and_respects_box():
     """use_foothold_optimization: feet become decision variables (nx=24, nu=24);
     optimized touchdowns stay inside the constraint box around the reference."""
-    from quadruped_pympc_tamols_tpu.controllers.gradient import VariantGradientMPC
+    from quadruped_pympc_tamols.controllers.gradient import VariantGradientMPC
 
     cfg = make_config("aliengo", mpc_type="nominal",
                       **{"mpc.gradient.use_foothold_optimization": True,
@@ -207,7 +207,7 @@ def test_foothold_optimization_runs_and_respects_box():
 def test_foothold_optimization_moves_foothold_under_disturbance():
     """With a lateral velocity error the optimizer should shift the touchdown
     location rather than return the raw reference."""
-    from quadruped_pympc_tamols_tpu.controllers.gradient import VariantGradientMPC
+    from quadruped_pympc_tamols.controllers.gradient import VariantGradientMPC
 
     cfg = make_config("aliengo", mpc_type="nominal",
                       **{"mpc.gradient.use_foothold_optimization": True})
@@ -228,7 +228,7 @@ def test_kinodynamic_joints_reach_wb_layer():
     """The kinodynamic OCP's joint trajectories flow through the controller
     interface into the whole-body layer as joint PD targets (reference
     srbd_controller_interface.py:184-207, wb_interface.py:440-443)."""
-    from quadruped_pympc_tamols_tpu.interfaces.controller_interface import (
+    from quadruped_pympc_tamols.interfaces.controller_interface import (
         SRBDControllerInterface,
     )
 
@@ -249,7 +249,7 @@ def test_kinodynamic_joints_reach_wb_layer():
 def test_foothold_stance_proximity_freezes_last_swing_stage():
     """Foot states must not move on the final swing stage before touchdown (the
     reference's (1-stance)(1-stance_proximity) velocity gate)."""
-    from quadruped_pympc_tamols_tpu.controllers.gradient import VariantGradientMPC
+    from quadruped_pympc_tamols.controllers.gradient import VariantGradientMPC
 
     cfg = make_config("aliengo", mpc_type="nominal",
                       **{"mpc.gradient.use_foothold_optimization": True})

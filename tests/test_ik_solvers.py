@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import ROBOTS, make_config
-from quadruped_pympc_tamols_tpu.kinematics import LegKinematics, NumericIK, QPIK
+from quadruped_pympc_tamols import ROBOTS, make_config
+from quadruped_pympc_tamols.kinematics import LegKinematics, NumericIK, QPIK
 
 
 def _reachable_targets(robot, rng):
@@ -73,8 +73,8 @@ def test_reference_compatible_entry():
 
 
 def test_wb_interface_ik_selection():
-    from quadruped_pympc_tamols_tpu.interfaces.wb_interface import WBInterface
-    from quadruped_pympc_tamols_tpu.utils.legs import Legs
+    from quadruped_pympc_tamols.interfaces.wb_interface import WBInterface
+    from quadruped_pympc_tamols.utils.legs import Legs
 
     cfg = make_config("aliengo", **{"sim.ik_solver": "numeric"})
     feet = Legs(np.array([[0.25, 0.15, 0.0], [0.25, -0.15, 0.0],

@@ -15,9 +15,9 @@ soft (slacked) constraint path:
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
-from quadruped_pympc_tamols_tpu.controllers.gradient import VariantGradientMPC
-from quadruped_pympc_tamols_tpu.controllers.gradient.sqp import (
+from quadruped_pympc_tamols import make_config, replace_config
+from quadruped_pympc_tamols.controllers.gradient import VariantGradientMPC
+from quadruped_pympc_tamols.controllers.gradient.sqp import (
     BatchedGradientMPC,
     GradientMPC,
     build_stage_wrench,

@@ -3,13 +3,13 @@ torque path (stance tau=-J^T f, Cartesian swing tracking, IK joint PD)."""
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
+from quadruped_pympc_tamols import make_config, replace_config
 
 mujoco = pytest.importorskip("mujoco")
 
-from quadruped_pympc_tamols_tpu.sim.mujoco_env import QuadrupedEnv  # noqa: E402
-from quadruped_pympc_tamols_tpu.sim.simulation import run_simulation  # noqa: E402
-from quadruped_pympc_tamols_tpu.utils.legs import Legs  # noqa: E402
+from quadruped_pympc_tamols.sim.mujoco_env import QuadrupedEnv  # noqa: E402
+from quadruped_pympc_tamols.sim.simulation import run_simulation  # noqa: E402
+from quadruped_pympc_tamols.utils.legs import Legs  # noqa: E402
 
 
 def test_env_readers_and_passive_physics():
@@ -82,12 +82,12 @@ def test_gradient_trots_full_physics():
 
 def test_video_recorder(tmp_path):
     """Offscreen episode recording (gated: needs a GL backend, e.g. MUJOCO_GL=egl)."""
-    from quadruped_pympc_tamols_tpu.sim.video import rendering_available
+    from quadruped_pympc_tamols.sim.video import rendering_available
 
     if not rendering_available():
         pytest.skip("no offscreen GL backend in this environment")
-    from quadruped_pympc_tamols_tpu import make_config
-    from quadruped_pympc_tamols_tpu.sim.simulation import run_simulation
+    from quadruped_pympc_tamols import make_config
+    from quadruped_pympc_tamols.sim.simulation import run_simulation
 
     cfg = make_config("aliengo", mpc_type="sampling",
                       **{"sim.visual_foothold_adaptation": "blind"})
@@ -118,10 +118,10 @@ def test_env_srb_inertia():
 def test_fleet_success_rate_randomized(mpc_type):
     """Randomized-episode success harness (reference batched_simulations.py):
     ALL solver families — including lyapunov/collaborative, which previously had
-    only a single-seed smoke test (VERDICT r2 weak #5) — stay up across
+    only a single-seed smoke test — stay up across
     velocity/friction randomization. (Full sweep: 10/10 episodes at 4 s per
     family, README table; trimmed here for CI time.)"""
-    from quadruped_pympc_tamols_tpu.sim.batched import run_batched_simulations
+    from quadruped_pympc_tamols.sim.batched import run_batched_simulations
 
     cfg = make_config("aliengo", mpc_type=mpc_type,
                       **{"sim.visual_foothold_adaptation": "blind",
@@ -134,9 +134,9 @@ def test_fleet_success_rate_randomized(mpc_type):
 
 
 def test_fleet_sampling_rough_terrain():
-    """Sampling + TAMOLS fleet row on procedural rough terrain (VERDICT r2 weak
-    #5: the randomized table previously covered flat ground only)."""
-    from quadruped_pympc_tamols_tpu.sim.batched import run_batched_simulations
+    """Sampling + TAMOLS fleet row on procedural rough terrain (the randomized table
+    previously covered flat ground only)."""
+    from quadruped_pympc_tamols.sim.batched import run_batched_simulations
 
     cfg = make_config("aliengo", mpc_type="sampling",
                       **{"sim.visual_foothold_adaptation": "tamols",
@@ -176,8 +176,8 @@ def test_variants_trot_full_physics(variant):
     res = run_simulation(cfg, num_episodes=1, episode_duration_s=dur,
                          ref_base_lin_vel=(0.25, 0.0), seed=0)[0]
     assert not res.fell, f"{variant} fell after {res.duration}s"
-    # >=0.4 m keeps a real tracking bar (VERDICT r2 weak #5 called the old
-    # 0.15 m threshold lenient enough to hide regressions).
+    # >=0.4 m keeps a real tracking bar (the old 0.15 m threshold was
+    # lenient enough to hide regressions).
     assert res.distance > 0.4, f"{variant} travelled {res.distance:.2f} m"
 
 
@@ -220,7 +220,7 @@ def test_rough_terrain_walks(scene, vfa):
 def test_batched_simulations_multiprocess():
     """The spawned-worker fan-out path (reference batched_simulations.py's 4-process
     pattern): workers force the CPU platform and aggregate cleanly."""
-    from quadruped_pympc_tamols_tpu.sim.batched import run_batched_simulations
+    from quadruped_pympc_tamols.sim.batched import run_batched_simulations
 
     cfg = make_config("aliengo", mpc_type="sampling",
                       **{"sim.visual_foothold_adaptation": "blind",

@@ -1,15 +1,16 @@
-"""Multi-host (DCN) scaling path: real jax.distributed process groups.
+"""Multi-host scaling path: real jax.distributed process groups.
 
 The reference's widest fan-out is 4 OS processes on one box
-(/root/reference/simulation/batched_simulations.py:22-58); it has no distributed
+(reference simulation/batched_simulations.py:22-58); it has no distributed
 backend at all (SURVEY §2.7). These tests fork REAL worker processes around a
 localhost coordinator and run the closed-loop MPC fleet on a global mesh whose
-"scenario" axis crosses processes — the same code path as a multi-host pod slice
-(cross-process psum rides the coordinator's TCP transport standing in for DCN).
+"scenario" axis crosses processes — the same code path as a multi-host cluster
+(cross-process psum rides the coordinator's TCP transport standing in for the
+network).
 """
 import numpy as np
 
-from quadruped_pympc_tamols_tpu.parallel.multihost import (
+from quadruped_pympc_tamols.parallel.multihost import (
     launch_local_multihost,
     multihost_mesh,
 )
@@ -28,7 +29,7 @@ def test_two_process_fleet_runs_and_reduces():
 
 
 def test_multihost_mesh_sample_axis_stays_on_host():
-    """Single-process sanity: mesh rows group by process so ICI-axis collectives
+    """Single-process sanity: mesh rows group by process so sample-axis collectives
     never cross hosts (here all devices are local, so it reduces to a shape check)."""
     mesh = multihost_mesh(samples_per_host=2)
     assert mesh.axis_names == ("scenario", "sample")
@@ -38,8 +39,8 @@ def test_multihost_mesh_sample_axis_stays_on_host():
 
 
 def test_four_process_fleet_table():
-    """4-process table refresh (VERDICT r4 ask #9): the widest local stand-in
-    for a multi-host pod slice — 4 forked jax.distributed workers x 2 virtual
+    """4-process table refresh: the widest local stand-in
+    for a multi-host cluster — 4 forked jax.distributed workers x 2 virtual
     devices on a global (scenario, sample) mesh, run alongside the round's
     fleet changes (hitpoint-re-plan reflexes ride the same scenario engine)."""
     rep = launch_local_multihost(n_proc=4, local_devices=2, n_steps=2)

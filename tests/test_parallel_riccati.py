@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_pympc_tamols_tpu.controllers.gradient.parallel_riccati import (
+from quadruped_pympc_tamols.controllers.gradient.parallel_riccati import (
     lqr_backward_associative,
     lqr_backward_sequential,
 )
@@ -83,8 +83,8 @@ def test_ddp_associative_backward_equals_sequential():
     """The production consumer (config mpc.gradient.riccati_backward): the DDP
     solve with the parallel-in-time backward matches the sequential backward on
     a trot problem — the two passes solve the same LQR."""
-    from quadruped_pympc_tamols_tpu import make_config
-    from quadruped_pympc_tamols_tpu.controllers.gradient.ddp import make_ddp_solver
+    from quadruped_pympc_tamols import make_config
+    from quadruped_pympc_tamols.controllers.gradient.ddp import make_ddp_solver
 
     outs = {}
     for mode in ("sequential", "associative"):
@@ -107,8 +107,8 @@ def test_ddp_associative_backward_equals_sequential():
 def test_ddp_long_horizon_auto_uses_associative():
     """H=48 long-horizon DDP ('auto' selects the associative pass) solves to
     finite, cone-feasible forces."""
-    from quadruped_pympc_tamols_tpu import make_config
-    from quadruped_pympc_tamols_tpu.controllers.gradient.ddp import make_ddp_solver
+    from quadruped_pympc_tamols import make_config
+    from quadruped_pympc_tamols.controllers.gradient.ddp import make_ddp_solver
 
     cfg = make_config("aliengo", mpc_type="nominal",
                       **{"mpc.gradient.use_DDP": True, "mpc.horizon": 48,

@@ -4,8 +4,8 @@ msgs_ws/src/dls2_interface/msg/*.msg)."""
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config
-from quadruped_pympc_tamols_tpu.runtime import (
+from quadruped_pympc_tamols import make_config
+from quadruped_pympc_tamols.runtime import (
     BaseState,
     BlindState,
     ControllerNode,
@@ -15,19 +15,19 @@ from quadruped_pympc_tamols_tpu.runtime import (
     pack_trajectory_generator,
     rclpy_available,
 )
-from quadruped_pympc_tamols_tpu.runtime.ros2_node import (
+from quadruped_pympc_tamols.runtime.ros2_node import (
     Pose,
     Screw,
     quat_wxyz_to_euler_xyz,
 )
-from quadruped_pympc_tamols_tpu.utils.legs import Legs
+from quadruped_pympc_tamols.utils.legs import Legs
 
 
 def _standing_messages(cfg):
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu.kinematics import LegKinematics
-    from quadruped_pympc_tamols_tpu.utils.frames import euler_xyz_to_rot
+    from quadruped_pympc_tamols.kinematics import LegKinematics
+    from quadruped_pympc_tamols.utils.frames import euler_xyz_to_rot
 
     kin = LegKinematics(cfg.robot)
     base_pos = np.array([0.0, 0.0, cfg.sim.ref_z])
@@ -118,7 +118,7 @@ def test_msg_idl_matches_dataclasses():
     import dataclasses
     import pathlib
 
-    from quadruped_pympc_tamols_tpu.runtime import ros2_node as rn
+    from quadruped_pympc_tamols.runtime import ros2_node as rn
 
     msg_dir = (pathlib.Path(rn.__file__).parent / "msgs" / "dls2_interface" / "msg")
     schemas = {
@@ -142,7 +142,7 @@ def test_node_to_node_loopback_walks():
     run_simulator.py <-> run_controller.py pairing of the reference (both sides
     see ONLY messages — no shared state)."""
     pytest.importorskip("mujoco")
-    from quadruped_pympc_tamols_tpu.runtime import (ControllerBridge,
+    from quadruped_pympc_tamols.runtime import (ControllerBridge,
                                                     LocalTransport,
                                                     SimulatorNode)
 

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
-from quadruped_pympc_tamols_tpu.controllers.gradient import make_rti_solver_split
-from quadruped_pympc_tamols_tpu.controllers.gradient.sqp import GradientMPC
+from quadruped_pympc_tamols import make_config, replace_config
+from quadruped_pympc_tamols.controllers.gradient import make_rti_solver_split
+from quadruped_pympc_tamols.controllers.gradient.sqp import GradientMPC
 
 
 def _problem(cfg):

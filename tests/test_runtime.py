@@ -7,8 +7,8 @@ import time
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
-from quadruped_pympc_tamols_tpu.runtime.control_bus import (
+from quadruped_pympc_tamols import make_config, replace_config
+from quadruped_pympc_tamols.runtime.control_bus import (
     PAYLOAD_DOUBLES,
     ControlBus,
     pack_control_block,
@@ -88,8 +88,8 @@ def test_bus_wait_new():
 
 @pytest.mark.parametrize("mode", ["inline", "thread", "shared_memory"])
 def test_controller_node_modes(mode):
-    from quadruped_pympc_tamols_tpu.runtime.controller_node import ControllerNode
-    from quadruped_pympc_tamols_tpu.utils.legs import Legs
+    from quadruped_pympc_tamols.runtime.controller_node import ControllerNode
+    from quadruped_pympc_tamols.utils.legs import Legs
 
     cfg = make_config("aliengo", mpc_type="sampling", gait="full_stance")
     cfg = replace_config(cfg, **{"mpc.sampling.num_samples": 200,
@@ -134,9 +134,9 @@ def test_controller_node_modes(mode):
 
 
 def test_console_commands():
-    from quadruped_pympc_tamols_tpu.interfaces.wrapper import QuadrupedPyMPCWrapper
-    from quadruped_pympc_tamols_tpu.runtime.console import Console
-    from quadruped_pympc_tamols_tpu.utils.legs import Legs
+    from quadruped_pympc_tamols.interfaces.wrapper import QuadrupedPyMPCWrapper
+    from quadruped_pympc_tamols.runtime.console import Console
+    from quadruped_pympc_tamols.utils.legs import Legs
 
     cfg = make_config("aliengo", mpc_type="sampling")
     cfg = replace_config(cfg, **{"mpc.sampling.num_samples": 64})
@@ -160,10 +160,10 @@ def test_console_commands():
 def test_console_new_commands():
     import numpy as np
 
-    from quadruped_pympc_tamols_tpu import make_config
-    from quadruped_pympc_tamols_tpu.interfaces.wrapper import QuadrupedPyMPCWrapper
-    from quadruped_pympc_tamols_tpu.runtime.console import Console
-    from quadruped_pympc_tamols_tpu.utils.legs import Legs
+    from quadruped_pympc_tamols import make_config
+    from quadruped_pympc_tamols.interfaces.wrapper import QuadrupedPyMPCWrapper
+    from quadruped_pympc_tamols.runtime.console import Console
+    from quadruped_pympc_tamols.utils.legs import Legs
 
     cfg = make_config("aliengo", **{"mpc.sampling.num_samples": 100,
                                     "sim.visual_foothold_adaptation": "blind"})

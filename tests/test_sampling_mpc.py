@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
-from quadruped_pympc_tamols_tpu.controllers.sampling import (
+from quadruped_pympc_tamols import make_config, replace_config
+from quadruped_pympc_tamols.controllers.sampling import (
     SamplingMPC,
     make_spline_basis,
     num_params_per_leg,
 )
-from quadruped_pympc_tamols_tpu.dynamics import integrate_euler, make_params
+from quadruped_pympc_tamols.dynamics import integrate_euler, make_params
 
 
 # --- independent numpy re-implementations of the reference spline formulas ----------
@@ -187,12 +187,12 @@ def test_zmp_band_cost_penalizes_off_support_rollouts():
     2-stance support segment, and compiles to NOTHING at weight 0 (parity)."""
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu.config import make_config
-    from quadruped_pympc_tamols_tpu.controllers.sampling.rollout import (
+    from quadruped_pympc_tamols.config import make_config
+    from quadruped_pympc_tamols.controllers.sampling.rollout import (
         ForceModelParams,
         rollout_costs_soa,
     )
-    from quadruped_pympc_tamols_tpu.dynamics.srbd import make_params
+    from quadruped_pympc_tamols.dynamics.srbd import make_params
 
     cfg = make_config("aliengo", mpc_type="sampling")
     srbd = make_params(cfg)

@@ -4,7 +4,7 @@ swing_generators/bezier_ref_swing_trajectory_generator.py:389-424)."""
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_pympc_tamols_tpu.gait.swing import (
+from quadruped_pympc_tamols.gait.swing import (
     SwingTrajectoryController,
     bezier_swing_refs,
     explicit_swing_refs,
@@ -85,13 +85,13 @@ def test_numpy_twins_match_jitted():
     """Host numpy twins (per-tick path) match the jitted kernels exactly."""
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu import ROBOTS
-    from quadruped_pympc_tamols_tpu.gait.swing import (
+    from quadruped_pympc_tamols import ROBOTS
+    from quadruped_pympc_tamols.gait.swing import (
         bezier_swing_refs,
         explicit_swing_refs,
         swing_refs_np,
     )
-    from quadruped_pympc_tamols_tpu.kinematics import LegKinematics
+    from quadruped_pympc_tamols.kinematics import LegKinematics
 
     t = np.array([0.05, 0.12, 0.2, 0.0])
     period = np.full(4, 0.25)
@@ -121,7 +121,7 @@ def test_numpy_twins_match_jitted():
 def test_swing_retarget_replans_to_new_target():
     """After retarget(), the remaining swing re-plans from the retarget point and
     lands exactly on the (new) touchdown at the end of the period."""
-    from quadruped_pympc_tamols_tpu.gait.swing import SwingTrajectoryController
+    from quadruped_pympc_tamols.gait.swing import SwingTrajectoryController
 
     stc = SwingTrajectoryController(step_height=0.1, swing_period=0.3,
                                     position_gain_fb=1000, velocity_gain_fb=20)
@@ -149,7 +149,7 @@ def test_velocity_matched_bezier_start():
     curve and its numpy host twin."""
     import jax.numpy as jnp
 
-    from quadruped_pympc_tamols_tpu.gait.swing import (
+    from quadruped_pympc_tamols.gait.swing import (
         bezier_swing_refs,
         swing_refs_np,
     )
@@ -193,7 +193,7 @@ def test_retarget_velocity_and_apex_flow_through_controller():
     """retarget(velocity=..., apex=...) reaches the curve: the re-planned
     command at the retarget moment moves at the recorded velocity, and the apex
     override caps the re-planned curve's height."""
-    from quadruped_pympc_tamols_tpu.gait.swing import SwingTrajectoryController
+    from quadruped_pympc_tamols.gait.swing import SwingTrajectoryController
 
     stc = SwingTrajectoryController(step_height=0.1, swing_period=0.3,
                                     position_gain_fb=1000, velocity_gain_fb=20)

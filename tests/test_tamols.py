@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from quadruped_pympc_tamols_tpu import make_config, replace_config
-from quadruped_pympc_tamols_tpu.planner import (
+from quadruped_pympc_tamols import make_config, replace_config
+from quadruped_pympc_tamols.planner import (
     GridHeightMap,
     heightmap_from_fn,
     lookup_nearest,
@@ -239,7 +239,7 @@ def test_progression_gate_off_on_flat():
     """Progression engages only where the IN-RADIUS terrain spans the gate
     range (deep gaps): on flat ground the same config behaves like plain
     TAMOLS (footholds stay near the Raibert seed, free strides) — and the
-    gate uses in-radius cells, not the whole sensing window (ADVICE r3)."""
+    gate uses in-radius cells, not the whole sensing window."""
     cfg = make_config("aliengo")
     cfg = replace_config(cfg, **{"tamols.min_advance": 0.35,
                                  "tamols.weight_progression": 50.0})
